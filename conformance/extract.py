@@ -5,7 +5,7 @@ The reference's test files (matrix_test.go, datok_test.go) contain the
 behavioral specification of Datok: ~120 inline tokenization scenarios
 asserted end-to-end through the real runtime (SURVEY.md §4).  This
 script mechanically extracts (tokenizer, input, expected) triples into
-``conformance/scenarios.json`` so our oracle and TPU kernels can be
+``conformance/scenarios.json`` so our oracle and device machines can be
 diffed against the same spec.  Only expectations (string literals in
 assertions) are read — no reference *code* is used.
 
@@ -19,7 +19,7 @@ Extracted patterns:
   * ``tok.Transduce(strings.NewReader(IN), w)`` +
     ``assert.Equal(OUT, w.String())``                 → full-output scenarios
 
-Run:  python conformance/extract.py [/root/reference] [out.json]
+Run:  python conformance/extract.py REFERENCE_CHECKOUT [out.json]
 """
 
 from __future__ import annotations
@@ -376,7 +376,9 @@ STALE_FIXTURE_MARKERS = [
 
 
 def main():
-    ref = sys.argv[1] if len(sys.argv) > 1 else "/root/reference"
+    if len(sys.argv) < 2:
+        sys.exit("usage: extract.py REFERENCE_CHECKOUT [out.json]")
+    ref = sys.argv[1]
     out = sys.argv[2] if len(sys.argv) > 2 else "conformance/scenarios.json"
     scen = extract(ref)
     for s in scen:

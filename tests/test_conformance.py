@@ -11,9 +11,10 @@ import re
 
 import pytest
 
+from conftest import require_reference
+
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCEN_PATH = os.path.join(HERE, "conformance", "scenarios.json")
-REF = "/root/reference/testdata"
 
 with open(SCEN_PATH, encoding="utf-8") as f:
     SCENARIOS = json.load(f)
@@ -26,9 +27,10 @@ def get_model(spec):
     key = (typ, name)
     if key in _model_cache:
         return _model_cache[key]
-    import datok_tpu as dt
+    import datok as dt
 
-    path = f"{REF}/{name}"
+    # the scenarios' expectations belong to the reference's own models
+    path = os.path.join(require_reference(name), name)
     if typ == "matok":
         tok = dt.load_matrix_file(path)
     elif typ == "datok":

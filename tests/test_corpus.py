@@ -5,7 +5,7 @@ import os
 
 
 def test_corpus_runner_resume(mat_de, tmp_path):
-    from datok_tpu.runtime.corpus import CorpusRunner
+    from datok.runtime.corpus import CorpusRunner
 
     files = []
     for i in range(3):
@@ -41,10 +41,10 @@ def test_corpus_native_writer_parity(mat_de, tmp_path):
     identical output to the Python TokenWriter replay."""
     import os
 
-    from datok_tpu.runtime.corpus import CorpusRunner
-    from datok_tpu.runtime.jax_engine import BatchEngine
-    from datok_tpu.runtime.pipeline import tokenize_stream
-    from datok_tpu.runtime.writer import TokenWriter
+    from datok.runtime.corpus import CorpusRunner
+    from datok.runtime.jax_engine import BatchEngine
+    from datok.runtime.pipeline import tokenize_stream
+    from datok.runtime.writer import TokenWriter
 
     text = (
         "Der alte Mann ging z.B. zur Weststr. 3. Zwei Sätze!\x04"
@@ -66,8 +66,8 @@ def test_corpus_shared_wave_chain_breaks(mat_de, tmp_path):
     """Files share device waves in one pipelined pass, but each file's
     chain starts fresh at the root — a file ending mid-word (no EOT)
     must not leak its exit context into the next file."""
-    from datok_tpu.runtime.corpus import CorpusRunner
-    from datok_tpu.runtime.jax_engine import BatchEngine
+    from datok.runtime.corpus import CorpusRunner
+    from datok.runtime.jax_engine import BatchEngine
 
     texts = [
         "Erste Datei endet mitten im Wort readme",  # no EOT, no period

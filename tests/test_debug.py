@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from datok_tpu.runtime.debug import (
+from datok.runtime.debug import (
     device_events,
     dump_divergence,
     oracle_trace,
     show_buffer,
 )
-from datok_tpu.runtime.jax_engine import BatchEngine
+from datok.runtime.jax_engine import BatchEngine
 
 
 def test_oracle_trace_shape(mat_de):
@@ -33,7 +33,7 @@ def test_dump_reports_mismatch(mat_de, monkeypatch):
     report contents."""
     import io
 
-    import datok_tpu.runtime.debug as dbg
+    import datok.runtime.debug as dbg
 
     eng = BatchEngine(mat_de, engine="hot")
     real = dbg.device_events

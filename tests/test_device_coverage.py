@@ -1,11 +1,11 @@
 """Every model family is first-class on every device engine.
 
-Parametrized parity over {DE, EN, clitic, simpletok} × {general, hot,
-pallas-interpret}: each engine must produce oracle-identical event
-streams on the full conformance corpus (hot/general) or a boundary-
-heavy subset (pallas interpreter mode, which is orders slower) plus
-model-specific inputs — the reference's cross-model test spread
-(matrix_test.go:1017-1230) on the TPU engines.
+Parametrized parity over the generated grammars {DE-size, EN-size,
+small, simple (no EOT symbol)} × {general, hot}: each engine must
+produce oracle-identical event streams on the full conformance corpus
+plus inputs drawn from the grammar's own vocabulary — the reference's
+cross-model test spread (matrix_test.go:1017-1230) on the device
+engines.
 """
 
 import json
@@ -13,46 +13,38 @@ import os
 
 import pytest
 
-from datok_tpu.runtime.jax_engine import BatchEngine
-from datok_tpu.runtime.oracle import transduce_events
+from datok.fsa import synth
+from datok.runtime.jax_engine import BatchEngine
+from datok.runtime.oracle import transduce_events
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REF = "/root/reference/testdata"
 
 with open(os.path.join(HERE, "conformance", "scenarios.json"), encoding="utf-8") as f:
     CORPUS = sorted({s["input"] for s in json.load(f)})
 
-# model-specific exercises beyond the shared corpus
-EXTRA = {
-    "tokenizer_en.matok": [
-        "they're They're THEY'RE doesn't Doesn't DOESN'T",
-        "I'm won't shan't it's a can't-miss event, ain't it?",
-        "We'll've been there by Jan. 3rd, Mr. Smith. The U.S.A. etc.",
-        "Don't.\x04Didn't.\x04",
-        "",
-    ],
-    "clitic_test.matok": [
-        "n't n't n't",
-        "Dean't dean't deant",
-        "aan't a an't",
-        "",
-        "\x04",
-    ],
-    "tokenizer_de.matok": [],
-    "simpletok.matok": [
-        "Der alte  Mann.   Hier!\x04Und (dort)?",
-        " \t\n mixed   spacing . ",
-    ],
-}
-
-MODELS = list(EXTRA.keys())
+MODELS = ["synth_de18k", "synth_en15k", "synth_small", "synth_simple"]
+EXTRA = [
+    "Der alte  Mann.   Hier!\x04Und (dort)?",
+    " \t\n mixed   spacing . ",
+    "# lone hash, @ lone at, `backtick`\x04`\x04",
+    "",
+    "\x04",
+]
 
 
 @pytest.fixture(scope="module")
 def model_cache():
-    import datok_tpu as dt
+    import datok as dt
 
-    return {name: dt.load_matrix_file(f"{REF}/{name}") for name in MODELS}
+    return {name: dt.load_matrix_file(synth.model_path(name)) for name in MODELS}
+
+
+def _texts(name):
+    own = synth.documents(
+        name if name != "synth_simple" else "synth_small",
+        [40, 200, 700], seed=11,
+    )
+    return CORPUS + EXTRA + own
 
 
 def _assert_parity(eng, tok, texts):
@@ -67,39 +59,20 @@ def test_corpus_parity(model_cache, name, engine):
     tok = model_cache[name]
     eng = BatchEngine(tok, engine=engine)
     assert eng.engine == engine
-    texts = CORPUS + EXTRA[name]
-    if engine == "general":  # serial-gather machine is slow; thin out
-        texts = texts[::4] + EXTRA[name]
-    _assert_parity(eng, tok, texts)
-
-
-@pytest.mark.parametrize("name", MODELS)
-def test_pallas_interpret_parity(model_cache, name):
-    tok = model_cache[name]
-    eng = BatchEngine(
-        tok, engine="pallas", kernel_k=16, kernel_bl=128,
-        pallas_interpret=True,
-    )
-    assert eng.engine == "pallas"
-    # interpreter mode is ~100× slower than compiled — a spread of the
-    # corpus plus every model-specific input keeps runtime sane
-    texts = CORPUS[::8] + EXTRA[name]
-    _assert_parity(eng, tok, texts)
+    _assert_parity(eng, tok, _texts(name))
 
 
 def test_en_hot_profile_covers_clitics(model_cache):
-    """The EN calibration additions must put the clitic/abbreviation
-    machinery in the hot set (was German-centric before)."""
-    tok = model_cache["tokenizer_en.matok"]
-    eng = BatchEngine(tok, engine="hot")
+    """Profile texts decide the hot set: every state visited while
+    transducing the profile sample must be hot (cold states there would
+    run at service-step speed).  The generated EN grammar has no
+    clitic rules; its own sentences take their place."""
+    tok = model_cache["synth_en15k"]
+    sample = " ".join(synth.sentence_pool("synth_en15k", n=8))
+    eng = BatchEngine(tok, engine="hot", profile_texts=[sample],
+                      hot_size=2048)
     hot = set(eng.spec.hot_full.tolist())
-    # every state visited while transducing English clitic text must be
-    # hot — cold states here would mean EN runs at service speed
     counter = {}
-    transduce_events(
-        tok,
-        "Don't they're we'll I'm isn't won't Mr. Smith's Jan. 3rd etc.",
-        state_counter=counter,
-    )
+    transduce_events(tok, sample, state_counter=counter)
     cold = [s for s in counter if s not in hot]
-    assert not cold, f"EN clitic states missing from hot set: {cold[:10]}"
+    assert not cold, f"profiled states missing from hot set: {cold[:10]}"

@@ -20,8 +20,7 @@ import sys
 
 import pytest
 
-import datok_tpu as dt
-from datok_tpu.fsa.matrix import MatrixTokenizer
+import datok as dt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "distributed_worker.py")
@@ -52,8 +51,9 @@ def test_two_process_coordinator(tmp_path):
     files = sorted(str(p) for p in corpus.iterdir())
 
     # ---- single-process reference run ------------------------------
-    auto = dt.load_foma_file("/root/reference/testdata/simpletok.fst")
-    tok = MatrixTokenizer.from_automaton(auto)
+    from datok.fsa.synth import model_path
+
+    tok = dt.load_matrix_file(model_path("synth_simple"))
     solo_dir = tmp_path / "solo"
     runner = dt.CorpusRunner(tok, str(solo_dir))
     solo = runner.run(files)
@@ -128,19 +128,3 @@ def test_two_process_coordinator(tmp_path):
     # per-process manifests exist (independent crash/resume domains)
     assert (out_dir / "manifest.p0.json").exists()
     assert (out_dir / "manifest.p1.json").exists()
-
-    # judge-facing artifact: proof the module executed with 2 processes
-    artifact = {
-        "processes": 2,
-        "backend": "cpu (localhost coordinator)",
-        "fresh": fresh,
-        "resume": resume,
-        "matches_single_process": True,
-    }
-    try:
-        with open(
-            os.path.join(REPO, "DISTRIBUTED_r05.json"), "w", encoding="utf-8"
-        ) as fh:
-            json.dump(artifact, fh, indent=1)
-    except OSError:
-        pass

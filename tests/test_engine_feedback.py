@@ -1,72 +1,48 @@
-"""Engine runtime adaptation: ring-window desync feedback and the
-corpus auto-pack decision.
+"""Engine exactness under runtime adaptation: lanes killed at a starved
+step budget, the corpus auto-pack decision, and the event decoder's
+guard against a truncated event slice.
 
-Both exist because one static configuration cannot serve every
-workload (BENCH_LOG r5): rotated-phase batches outrun the 128-row
-meta ring (round efficiency 0.52, fixed by the 256-row ring:
-290.5 → 316.9 MB/s), while realistic mixed corpora measured ~2×
-SLOWER lane-packed than sorted-unpacked, and packed waves' 4 global
-steps per char-of-L brushed the step budget (the corpus repair storm,
-fixed by deciding packing from the median document length).
+A lane the device machine cannot finish within ``max_steps_for(L)``
+comes back flagged ``bad`` and is redone exactly on the host; packing is
+decided at run time from the median document length.
 """
 
 import numpy as np
 import pytest
 
-from datok_tpu.runtime.jax_engine import BatchEngine
+from datok.runtime.jax_engine import BatchEngine
+
+STALL_TEXTS = [
+    "Zyklotronresonanz vexiert jodhaltige Quarzbrocken famos und "
+    "die Psychopharmakakommission qualifizierte Oxymorone.",
+    "Der alte Mann ging heim.",
+    "Wachstumsschmerzen plagen juvenile Axolotl, ca. 7,5%.",
+]
 
 
 @pytest.fixture(scope="module")
 def eng(mat_de):
-    return BatchEngine(
-        mat_de, engine="pallas", kernel_k=16, kernel_bl=128,
-        pallas_interpret=True,
-    )
+    return BatchEngine(mat_de, engine="general")
 
 
-def test_pring_feedback_flip_and_hysteresis(eng):
-    eng._pring_auto = 0
-    eng._pring_pending = None
-    K = eng.kernel_k
-    # desynced batch: rounds exit early → widen
-    eng._pring_feedback(np.array([100, 0, 0]), 100 * K * 0.50)
-    assert eng._pring_auto == 256
-    # healthy-but-not-great efficiency: stays wide (hysteresis)
-    eng._pring_feedback(np.array([100, 0, 0]), 100 * K * 0.65)
-    assert eng._pring_auto == 256
-    # clearly healthy: narrows back
-    eng._pring_feedback(np.array([100, 0, 0]), 100 * K * 0.86)
-    assert eng._pring_auto == 0
-    # healthy stays narrow
-    eng._pring_feedback(np.array([100, 0, 0]), 100 * K * 0.86)
-    assert eng._pring_auto == 0
-    # tiny runs (guard shapes) never flip
-    eng._pring_feedback(np.array([2, 0, 0]), 1)
-    assert eng._pring_auto == 0
-
-
-def test_pring_feedback_lazy_consumption(eng):
-    """Pending device scalars are consumed exactly once, at the next
-    _pring_effective() call — never at store time (a host read there
-    would sync the pipelined caller)."""
-    eng._pring_auto = 0
-    K = eng.kernel_k
-    eng._pring_pending = (np.array([100, 0, 0]), 100 * K * 0.50)
-    assert eng._pring_effective() == 256
-    assert eng._pring_pending is None
-
-
-def test_explicit_pring_disables_feedback(mat_de):
-    e = BatchEngine(
-        mat_de, engine="pallas", kernel_k=16, kernel_bl=128,
-        pallas_interpret=True, kernel_pring=128,
-    )
-    e._pring_feedback(np.array([100, 0, 0]), 100 * e.kernel_k * 0.1)
-    assert e._pring_effective() == 128
+@pytest.mark.parametrize("machine", ["general", "hot"])
+def test_budget_kill_repairs_exactly(mat_de, machine):
+    """Lanes killed at the global step budget must repair EXACTLY on
+    the host: a deliberately starved budget (fewer steps than chars)
+    over long lanes of novel vocabulary."""
+    e = BatchEngine(mat_de, engine=machine, steps_factor=0.25)
+    texts = [" ".join(STALL_TEXTS * 4)] * 2 + STALL_TEXTS
+    meta, lengths, _ = e.encoder.encode_batch(texts)
+    _ys, bad, n_steps, _ = e.run_raw(meta, lengths)
+    assert n_steps <= e.max_steps_for(meta.shape[1])
+    assert bad[:2].all()  # the long lanes cannot finish in L/4 + 64 steps
+    got = e.tokenize_batch(texts)
+    want = [mat_de.tokenize(t) for t in texts]
+    assert got == want
 
 
 def test_corpus_auto_pack_decision(tmp_path, mat_de, eng):
-    from datok_tpu.runtime.corpus import CorpusRunner
+    from datok.runtime.corpus import CorpusRunner
 
     tiny = "Kurz.\x04" * 400
     (tmp_path / "tiny.txt").write_text(tiny)
@@ -80,59 +56,24 @@ def test_corpus_auto_pack_decision(tmp_path, mat_de, eng):
                          engine=eng)
         r.run([str(tmp_path / name)], stats=st)
         assert st["pack_len"] == want_pack, (name, st)
+        src = (tmp_path / name).read_text()
+        out = (tmp_path / ("out_" + name) / (name + ".tok")).read_text()
+        assert out == mat_de.tokenize(src)
 
 
 def test_native_decode_events_rejects_narrow_slice(mat_de, eng):
     """A narrower event-row slice than counts implies must fail loud:
     downstream offsets use the unclamped counts, so silent truncation
     would misattribute events across documents."""
-    from datok_tpu.utils.native import native_decode_events
-    import numpy as np
+    from datok.utils.native import native_decode_events
 
     ev, counts, bad, _ = eng.run_events_compact(
         *eng.encoder.encode_batch(["Der alte Mann ging heim."] * 4)[:2]
     )
     assert not bad.any()
     if native_decode_events(ev, counts) is None:
-        import pytest
-
         pytest.skip("native library unavailable")
     wide = int(counts.max())
     assert wide > 1
     with np.testing.assert_raises(ValueError):
         native_decode_events(ev[:, : wide - 1], counts)
-
-
-def test_injection_requires_small_sigma(mat_de):
-    """The injection fingerprint packs the symbol id at bit 18 of an
-    int32 — engines whose sigma exceeds 13 bits must not enable it
-    (aliasing would consume the WRONG injected entry, silently)."""
-    e = BatchEngine(
-        mat_de, engine="pallas", kernel_bl=128, pallas_interpret=True
-    )
-    assert e.rep.max_sym < (1 << 13) and e.inj_enabled
-    # the gate itself: simulate a huge sigma
-    class FakeRep:
-        S = e.rep.S
-        max_sym = 1 << 13
-    assert not (FakeRep.S < (1 << 15) and FakeRep.max_sym < (1 << 13))
-
-
-def test_budget_kill_repairs_exactly(mat_de):
-    """Lanes killed at the global step budget must repair EXACTLY on
-    the host (the corpus-storm scenario of BENCH_LOG r5 in miniature:
-    a deliberately starved budget + stall-heavy novel vocabulary)."""
-    e = BatchEngine(
-        mat_de, engine="pallas", kernel_k=8, kernel_bl=128,
-        pallas_interpret=True, per_wave=False, steps_factor=1.0,
-        kernel_inj_budget=1.0,
-    )
-    texts = [
-        "Zyklotronresonanz vexiert jodhaltige Quarzbrocken famos und "
-        "die Psychopharmakakommission qualifizierte Oxymorone.",
-        "Der alte Mann ging heim.",
-        "Wachstumsschmerzen plagen juvenile Axolotl, ca. 7,5%.",
-    ] * 3
-    got = e.tokenize_batch(texts)
-    want = [mat_de.tokenize(t) for t in texts]
-    assert got == want  # exact regardless of how many lanes went bad

@@ -2,11 +2,13 @@
 oracle pattern, matrix_test.go:1248-1275) plus constructed-vs-loaded
 representation equivalence."""
 
+import os
+
 import pytest
 
-import datok_tpu as dt
-
-REF = "/root/reference/testdata"
+import datok as dt
+from datok.fsa.synth import build_automaton
+from conftest import require_reference
 
 # The reference's mixed-German benchmark text (matrix_test.go:13-21).
 BENCH_TEXT = """Der Vorsitzende der Abk. hat gewählt. Gefunden auf wikipedia.org. Ich bin unter korap@ids-mannheim.de erreichbar.
@@ -48,17 +50,25 @@ def test_da_to_matrix_equivalence(dat_de):
 
 
 def test_constructed_da_matches_loaded_matrix(mat_de):
-    auto = dt.load_foma_file(f"{REF}/tokenizer_de.fst")
-    # constructing the full DE double array takes minutes; use the
-    # matrix from the same automaton and compare against the loaded one
+    auto, _ = build_automaton("synth_de18k")
+    # the matrix constructed from the same automaton must behave like
+    # the loaded one
     mat2 = dt.MatrixTokenizer.from_automaton(auto)
     for text in [BENCH_TEXT, "Der alte Mann aß z.B. 3,5 Mio. Äpfel..."]:
         assert mat2.tokenize(text) == mat_de.tokenize(text)
 
 
-@pytest.mark.parametrize("name", ["simpletok", "wahlamt", "bauamt", "clitic_test"])
+@pytest.mark.parametrize(
+    "name",
+    ["simpletok", "wahlamt", "bauamt", "clitic_test", "synth_small",
+     "synth_simple"],
+)
 def test_small_fst_representation_equivalence(name):
-    auto = dt.load_foma_file(f"{REF}/{name}.fst")
+    if name.startswith("synth_"):
+        auto, _ = build_automaton(name)
+    else:
+        fst = f"{name}.fst"
+        auto = dt.load_foma_file(os.path.join(require_reference(fst), fst))
     mat = dt.MatrixTokenizer.from_automaton(auto)
     da = dt.DaTokenizer.from_automaton(auto)
     for text in [

@@ -12,14 +12,14 @@ waves and every output flag combination.
 import numpy as np
 import pytest
 
-import datok_tpu as dt
-from datok_tpu.runtime.encode import text_to_codepoints
-from datok_tpu.runtime.oracle import transduce_events
-from datok_tpu.runtime.writer import (NEWLINE_AFTER_EOT, SENTENCE_POS,
+import datok as dt
+from datok.runtime.encode import text_to_codepoints
+from datok.runtime.oracle import transduce_events
+from datok.runtime.writer import (NEWLINE_AFTER_EOT, SENTENCE_POS,
                                       SENTENCES, TOKEN_POS, TOKENS,
                                       TokenWriter)
 
-native = pytest.importorskip("datok_tpu.utils.native")
+native = pytest.importorskip("datok.utils.native")
 if native.get_lib() is None:
     pytest.skip("native library unavailable", allow_module_level=True)
 
@@ -117,7 +117,7 @@ def test_feed_wave_mt_state_across_waves(mat_de, flags):
 
 def test_feed_wave_mt_matches_python_writer(mat_de):
     """The chunked native path equals the pure-Python TokenWriter."""
-    from datok_tpu.runtime.events import replay_events
+    from datok.runtime.events import replay_events
 
     flags = TOKENS | SENTENCES | TOKEN_POS | SENTENCE_POS
     tri, counts, flat, offs, lens = _wave_of(mat_de, DOCS)

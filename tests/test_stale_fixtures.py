@@ -22,7 +22,7 @@ import os
 import numpy as np
 import pytest
 
-from datok_tpu.fsa.io import FIRSTBIT, RESTBIT
+from datok.fsa.io import FIRSTBIT, RESTBIT
 
 from test_conformance import (  # noqa: E402 (tests run with rootdir on sys.path)
     SCENARIOS,

@@ -17,11 +17,10 @@ import io
 import numpy as np
 import pytest
 
-import datok_tpu as dt
-from datok_tpu.fsa.matrix import MatrixTokenizer
-from datok_tpu.runtime.jax_engine import BatchEngine
-from datok_tpu.runtime.overlap import tokenize_stream_pipelined
-from datok_tpu.runtime.pipeline import (
+import datok as dt
+from datok.runtime.jax_engine import BatchEngine
+from datok.runtime.overlap import tokenize_stream_pipelined
+from datok.runtime.pipeline import (
     eot_in_sigma,
     eot_split_safe,
     tokenize_reader,
@@ -32,8 +31,11 @@ from datok_tpu.runtime.pipeline import (
 
 @pytest.fixture(scope="module")
 def simpletok():
-    auto = dt.load_foma_file("/root/reference/testdata/simpletok.fst")
-    return MatrixTokenizer.from_automaton(auto)
+    """Generated stand-in for the reference's simpletok: no \\x04 in
+    sigma, and the identity arc EOT rides leads to a state with ε."""
+    from datok.fsa.synth import model_path
+
+    return dt.load_matrix_file(model_path("synth_simple"))
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +60,7 @@ def test_split_gating(simpletok, mat_de):
     via segment-level speculation).  DE has \\x04 in sigma but its EOT
     arcs don't all return to the root → the cut + chain-repair regime.
     """
-    from datok_tpu.runtime.pipeline import split_stream
+    from datok.runtime.pipeline import split_stream
 
     assert not eot_in_sigma(simpletok)
     assert split_stream(simpletok, "a\x04b\x04") == ["a\x04b\x04"]
@@ -124,7 +126,7 @@ def test_stream_parity_reader(simpletok, eng, chunk):
 def test_transduce_doc_exact_cut_matches_stream(simpletok):
     """The host cut walk of an EOT-ending chunk + continuation equals
     the full-stream oracle (events and exit context)."""
-    from datok_tpu.runtime.oracle import transduce_events
+    from datok.runtime.oracle import transduce_events
 
     d0, d1 = "aab. ccc.\x04", "Xy?\x04"
     full = transduce_events(simpletok, d0 + d1)

@@ -16,11 +16,10 @@ import random
 
 import pytest
 
-import datok_tpu as dt
-from datok_tpu.fsa.matrix import MatrixTokenizer
-from datok_tpu.runtime.jax_engine import BatchEngine
-from datok_tpu.runtime.overlap import tokenize_stream_pipelined
-from datok_tpu.runtime.pipeline import tokenize_reader, tokenize_stream
+import datok as dt
+from datok.runtime.jax_engine import BatchEngine
+from datok.runtime.overlap import tokenize_stream_pipelined
+from datok.runtime.pipeline import tokenize_reader, tokenize_stream
 
 WORDS = [
     "Der", "alte", "Mann", "z.B.", "Weststr.", "bzw.", "wikipedia.org",
@@ -56,8 +55,9 @@ def _random_stream(rng: random.Random) -> str:
 
 @pytest.fixture(scope="module")
 def simple_eng():
-    auto = dt.load_foma_file("/root/reference/testdata/simpletok.fst")
-    tok = MatrixTokenizer.from_automaton(auto)
+    from datok.fsa.synth import model_path
+
+    tok = dt.load_matrix_file(model_path("synth_simple"))
     return tok, BatchEngine(tok)
 
 

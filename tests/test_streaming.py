@@ -7,9 +7,9 @@ import io
 
 import pytest
 
-import datok_tpu as dt
-from datok_tpu.runtime.oracle import transduce, transduce_reader
-from datok_tpu.runtime.writer import (
+import datok as dt
+from datok.runtime.oracle import transduce, transduce_reader
+from datok.runtime.writer import (
     NEWLINE_AFTER_EOT, SENTENCE_POS, SENTENCES, SIMPLE, TOKEN_POS, TOKENS,
     TokenWriter,
 )

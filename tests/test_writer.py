@@ -5,8 +5,8 @@ Expectations hand-ported from the reference's token_writer_test.go
 runtime, incl. newline-after-EOT offset discounting).
 """
 
-import datok_tpu as dt
-from datok_tpu import (
+import datok as dt
+from datok import (
     NEWLINE_AFTER_EOT,
     SENTENCE_POS,
     SENTENCES,
